@@ -49,7 +49,7 @@ def main():
     ap.add_argument("--size", type=int, default=128)
     ap.add_argument("--engine", default="plain", choices=("plain", "packed"),
                     help="'packed' differentiates the space-to-depth "
-                    "engine's forward (~2x steps/s; see BENCH_NOTES.md)")
+                    "engine's forward")
     args = ap.parse_args()
 
     print(f"devices: {jax.devices()}")

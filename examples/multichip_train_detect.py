@@ -1,11 +1,11 @@
 """Multi-chip end-to-end: mesh-DP training + multi-device staged detect.
 
-Demonstrates the round-3 public multi-chip surface (SURVEY.md section
+Demonstrates the public multi-chip surface (SURVEY.md section
 2.3 DP/SP rows, eval config 5 [B:11]):
 
 - ``FplNetwork.train(..., mesh=...)`` — mesh data-parallel training
   through the public verb (global batch sharded over the ``data`` axis,
-  gradient psum over ICI; same seed => same params as single-chip).
+  gradient psum across devices; same seed => same params as single-chip).
 - ``detect_staged(..., devices=jax.local_devices())`` — the HBM-resident
   ROI sweep round-robined over every local chip, detections
   bit-identical to the single-device sweep.

@@ -1,9 +1,9 @@
-"""Pod-scale multi-ROI streaming demo (eval config 5 [B:11]).
+"""Multi-ROI streaming demo (eval config 5 [B:11]).
 
 Streams ROIs from a (mock or real) DVID server through the fused detect
 pipeline with a resumable work queue; on a multi-chip mesh the same ROIs
 can instead go through sharded_infer + sharded_nms (volume sharded over
-ICI).  Here the source is synthetic unless --dvid is given.
+the devices).  Here the source is synthetic unless --dvid is given.
 
 Run: python examples/multiroi_streaming.py [--roi 64] [--n 4]
      python examples/multiroi_streaming.py --dvid host:port --uuid U --instance grayscale
@@ -37,7 +37,7 @@ def main():
 
     print(f"devices: {jax.devices()}")
 
-    spec = packed_spec(baseline_model())  # MXU-filling fast path
+    spec = packed_spec(baseline_model())  # packed inference engine
     variables = spec.init(jax.random.PRNGKey(0), 64)
     roi_shape = (args.roi,) * 3
     pipe = DetectPipeline(

@@ -29,7 +29,7 @@ def main():
     import jax
 
     print(f"devices: {jax.devices()}")
-    spec = packed_spec(baseline_model())  # MXU-filling fast path
+    spec = packed_spec(baseline_model())  # packed inference engine
     variables = spec.init(jax.random.PRNGKey(0), 64)
     rng = np.random.default_rng(0)
     vol = rng.integers(0, 256, (args.size,) * 3).astype(np.uint8)

@@ -2,7 +2,7 @@
 
 Parity: flypylib's examples/ scripts (SURVEY.md section 2.2 row 7) which
 download a labeled FIB-SEM cutout, build label/mask volumes, train a net,
-infer on held-out data, and report a PR curve.  This sandbox has no network,
+infer on held-out data, and report a PR curve.  Nothing is downloaded here,
 so the cutout is synthetic: Gaussian-blob "T-bars" on noise, with the same
 JSON annotation round-trip the real pipeline uses.
 

@@ -1,29 +1,30 @@
-"""flypylib_tpu — TPU-native 3D EM-volume synapse detection framework.
+"""flypylib_tpu — 3D EM-volume synapse detection framework in JAX.
 
-A from-scratch, TPU-first rebuild of the capabilities of
-janelia-flyem/flypylib (voxel-wise 3D CNN object detection in FIB-SEM
-electron-microscopy volumes: train / infer / nms / evaluate), designed
-around JAX/XLA/Pallas rather than Keras/TensorFlow:
+A from-scratch rebuild of the capabilities of janelia-flyem/flypylib
+(voxel-wise 3D CNN object detection in FIB-SEM electron-microscopy
+volumes: train / infer / nms / evaluate), designed around JAX/XLA rather
+than Keras/TensorFlow:
 
 - models: valid-convolution 3D CNNs (baseline conv stack, deeper VGG-like
-  stack, 3D U-Net) written in Flax, each exporting its exact receptive-field
+  stack, 3D U-Net) on a small ``jax.lax`` module layer
+  (``models.layers``), each exporting its exact receptive-field
   ``context`` for halo math (parity: flypylib fplmodels).
 - ops: on-device non-max suppression (reduce_window max-compare), connected
   components (fixed-point min-label propagation), candidate top-k extraction,
   fused flip/rotation augmentation, plus bit-exact NumPy/SciPy host
   references that define the semantics (parity: flypylib fplobjdetect).
 - infer: overlap-tiled fully-convolutional whole-volume inference with
-  static tile shapes (single XLA compile) and double-buffered host->HBM
+  static tile shapes (single XLA compile) and double-buffered host->device
   feeding (parity: flypylib fplnetwork.infer).
 - train: jit train step over randomly sampled, mask-restricted patches with
-  on-device augmentation; optax optimizers; orbax checkpoints (parity:
-  flypylib fplnetwork.train).
+  on-device augmentation; optax optimizers; orbax checkpoints, an
+  optional dependency (parity: flypylib fplnetwork.train).
 - parallel: jax.sharding.Mesh data/volume parallelism via shard_map with
-  ppermute halo exchange over ICI and cross-shard NMS merge (TPU-native
+  ppermute halo exchange and cross-shard NMS merge (the mesh
   replacement for flypylib multi_gpu.make_parallel).
-- io: HDF5 volumes, DVID HTTP client, T-bar annotation JSON parse and
-  rasterization into label + loss-mask volumes (parity: flypylib
-  fplsynapses).
+- io: HDF5 volumes (h5py, an optional dependency), DVID HTTP client,
+  T-bar annotation JSON parse and rasterization into label + loss-mask
+  volumes (parity: flypylib fplsynapses).
 
 The public API surface preserves flypylib's verbs: ``FplNetwork`` with
 ``train`` / ``infer`` plus module-level ``nms`` / ``evaluate``.

@@ -1,18 +1,18 @@
 """Elastic multi-worker ROI streaming (pod-scale, eval config 5 [B:11]).
 
-SURVEY.md section 5 (failure detection / elastic recovery) and VERDICT
-round-1 missing item 6: ``stream_rois`` drives ONE chip; a pod run needs
-the ROI work-list split across hosts with failure domains.  On a TPU pod
-every host runs the same program (jax.distributed), so the natural
-failure domain is the host process: each host claims ROIs from a shared
-queue, processes them on its local chip(s) through its own
+SURVEY.md section 5 (failure detection / elastic recovery):
+``stream_rois`` drives ONE device; a multi-host run needs the ROI
+work-list split across hosts with failure domains.  Every host runs the
+same program (jax.distributed), so the natural failure domain is the
+host process: each host claims ROIs from a shared queue, processes them
+on its local device(s) through its own
 ``DetectPipeline`` (or any callable), and marks them done.  A host that
 dies mid-ROI leaves a *lease* that expires; surviving hosts reclaim and
 re-run the ROI — detection is idempotent, so at-least-once execution with
 single-writer results is exact.
 
-Coordination is a shared directory (NFS/GCS-fuse on pods; tmpdir in
-tests) — no extra service:
+Coordination is a shared directory (NFS or another shared filesystem;
+tmpdir in tests) — no extra service:
 
 - ``done/<roi>.json``      completed ROI + detection counts (atomic
   rename; the resume state, compatible in spirit with ROIQueue's file),
@@ -28,9 +28,8 @@ and a mid-run crash in tests/test_elastic.py.
 Restarted workers should call
 :func:`flypylib_tpu.utils.cache.enable_compilation_cache` before
 building their pipeline: with the persistent XLA cache the re-created
-plan loads in seconds instead of recompiling for minutes (measured
-117.5 -> 2.3 s — BENCH_NOTES.md round 3), which also keeps the restart
-comfortably inside the default 600 s lease.
+plan loads its executables instead of recompiling them, which keeps the
+restart inside the default 600 s lease.
 """
 
 from __future__ import annotations
@@ -202,7 +201,7 @@ def stream_rois_elastic(
 
     def process(roi: ROI):
         # heartbeat while processing: a single ROI can legitimately take
-        # minutes (fresh-plan remote compiles) against the lease — without
+        # minutes (fresh-plan compiles) against the lease — without
         # refreshes a live worker's ROI would be stolen and re-run
         # (at-least-once keeps results exact, but the device work and any
         # ``sink`` POST would duplicate)

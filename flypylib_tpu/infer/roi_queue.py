@@ -4,7 +4,7 @@ Parity/aux subsystem (SURVEY.md section 5): flypylib had no failure
 recovery; long multi-ROI DVID runs here get a persistent work queue — one
 JSON state file, one entry per ROI (pending/done, detection counts) — so a
 killed job resumes where it stopped.  ROI volumes are prefetched on a
-background thread (network/disk rides under TPU compute), pushed through a
+background thread (network/disk rides under device compute), pushed through a
 ``DetectPipeline`` (one upload + one dispatch per ROI; uniform ROI shapes
 share one compile), deduplicated by ROI ownership where fetch boxes
 overlap, and detections can be pushed back to DVID as annotation

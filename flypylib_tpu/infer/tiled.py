@@ -5,7 +5,7 @@ by the model's valid-conv context, partition into blocks, run the
 fully-convolutional net per block, stitch outputs into the full probability
 map.
 
-TPU-first redesign (SURVEY.md section 7.2 step 4):
+Design (SURVEY.md section 7.2 step 4):
 
 - **Static tile shapes**: every tile has the same input shape, so XLA
   compiles the forward exactly once; the tile grid extends past the volume
@@ -14,12 +14,13 @@ TPU-first redesign (SURVEY.md section 7.2 step 4):
   ``size_multiple`` (2^levels for pooling U-Nets), so every tile sees the
   same pooling grid phase as a monolithic run — tiled output is bitwise
   identical to monolithic on the interior, including in tile overlaps.
-- **Batched tiles**: tiles are stacked on a batch axis to keep the MXU fed.
-- **Double-buffered host->HBM feed**: JAX dispatch is async — the next
+- **Batched tiles**: tiles are stacked on a batch axis, one dispatch per
+  batch.
+- **Double-buffered host->device feed**: JAX dispatch is async — the next
   tile batch uploads with ``jax.device_put`` while the current batch
   computes, so the feed rides under compute.
 - **On-device stitching**: with ``keep_on_device=True`` the probability map
-  is assembled in HBM with donated ``dynamic_update_slice`` so downstream
+  is assembled on device with donated ``dynamic_update_slice`` so downstream
   NMS/CC never pull the map to host (north star [B:5]).
 
 Padding semantics: the volume is reflect-padded by exactly ``context`` on
@@ -276,23 +277,21 @@ def default_tiling(
 ) -> tuple[int, int]:
     """Model-aware default ``(tile_out, tile_batch)`` for a volume.
 
-    Two measured regimes (BENCH_NOTES.md rounds 2-3):
+    Two regimes:
 
     - **Pooling topologies** (the valid-conv U-Net, plain or packed):
-      the chain rate GROWS with tile size, grids pay 1.9-3x halo
-      redundancy, and pooling shrinks activation footprints enough
-      that big tiles fit — ONE covering tile wins whenever its input
-      is under ``max_tile_in`` (44.4 vs 36.2 Mvox/s at 192^3,
-      52.4 vs 46.4 at 256^3, 63.2 at 384^3/tin 428 — the measured
-      ceiling on a 16 GB v5e: tin 552 is refused by the XLA compile
-      service; experiments/unet_pipe_tiles, unet_scale256,
-      BENCH_NOTES.md round 3).  Larger volumes get the largest valid
-      tile under the cap, batch 1.
-    - **Dilated conv stacks**: batched small-spatial tiles fill the
-      MXU better than big tiles despite halo redundancy (t64b16 beat
-      t256 by 1.5x at 256^3, round 2), and monolithic >200^3 conv
-      tiles OOM via XLA conv-patch materialization — 64-wide tiles,
-      batch up to 8 bounded by the grid size.
+      grids pay 1.9-3x halo redundancy, and pooling shrinks activation
+      footprints enough that big tiles fit — ONE covering tile whenever
+      its input is under ``max_tile_in``.  Larger volumes get the
+      largest valid tile under the cap, batch 1.
+    - **Dilated conv stacks**: batched small-spatial tiles despite halo
+      redundancy — 64-wide tiles, batch up to 8 bounded by the grid
+      size.
+
+    The cap (tile input 428), the tile 64 and the batch bound were
+    swept on the platform the package was first built for; they are
+    unmeasured on the GPU and stay the defaults until a sweep there
+    replaces them.
 
     The regime comes from the module topology (``UNetValid`` /
     ``PackedUNet``); custom specs can force it via
@@ -329,8 +328,7 @@ def grid_tiling_min_cost(
     dominated by halo redundancy (2.5x at 1k^3 with core 256), while a
     cost-minimizing grid over the whole volume pays only its own tile
     halos + overshoot (e.g. 27 tiles of tin 388 = 1.47x at 1k^3).
-    Batch stays 1 (big pooled tiles; batch>1 at these shapes measured
-    slower or crashing — BENCH_NOTES.md round 3)."""
+    Batch stays 1 (big pooled tiles)."""
     dims = to3d(vol_shape)
     ctx = spec.context
     mult = max(spec.size_multiple, 1)

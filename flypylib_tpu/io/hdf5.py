@@ -7,7 +7,6 @@ volumes as HDF5 datasets via h5py (SURVEY.md section 2.2 row 4).  Volumes are
 
 from __future__ import annotations
 
-import h5py
 import numpy as np
 
 DEFAULT_DATASET = "main"
@@ -19,6 +18,8 @@ def read_h5(path: str, dataset: str | None = None, roi=None) -> np.ndarray:
     ``roi`` is an optional tuple of slices (or ``(start, stop)`` pairs) for a
     chunked partial read so 1k^3+ volumes never need to fit host RAM twice.
     """
+    import h5py
+
     with h5py.File(path, "r") as f:
         if dataset is None:
             dataset = DEFAULT_DATASET if DEFAULT_DATASET in f else next(iter(f))
@@ -42,6 +43,8 @@ def write_h5(
     vol = np.asarray(vol)
     if chunks is None and vol.ndim == 3:
         chunks = tuple(min(64, s) for s in vol.shape)
+    import h5py
+
     with h5py.File(path, "w") as f:
         f.create_dataset(
             dataset, data=vol, compression=compression, chunks=chunks

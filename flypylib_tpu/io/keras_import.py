@@ -8,7 +8,7 @@ params pytrees — ConvStack, BatchNorm variants, and the U-Net.
 Layer-mapping contract (strict — unmatched weights are an error, never a
 silent skip):
 
-1. **By name** when every file layer name is a Flax layer in the target
+1. **By name** when every file layer name is a layer in the target
    (``Conv_0``, ``ConvTranspose_1``, ``BatchNorm_2``, ...) — the
    round-trip path written by :func:`save_keras_weights`, covering any
    zoo model including the U-Net.  Every target conv/BN layer must be
@@ -21,14 +21,14 @@ silent skip):
    anonymous file.  Counts and shapes must match exactly.
 
 Layout facts used:
-- Keras Conv3D kernels are ``(kd, kh, kw, cin, cout)`` — identical to Flax
-  ``nn.Conv`` NDHWC kernels, so no transposition is needed.  Flax
-  ``nn.ConvTranspose`` kernels are stored as-is and flagged via the file
+- Keras Conv3D kernels are ``(kd, kh, kw, cin, cout)`` — identical to the
+  zoo's DHWIO ``Conv`` kernels, so no transposition is needed.
+  ``ConvTranspose`` kernels are stored as-is and flagged via the file
   attr ``flypylib_tpu_layout`` (Keras' Conv3DTranspose uses a different
   kernel convention; such layers only round-trip through this module).
 - Keras HDF5 weight files nest as ``/<layer>/<layer>/kernel:0`` (legacy
   ``model_weights/<layer>/...`` for full-model saves); BatchNorm stores
-  ``gamma/beta/moving_mean/moving_variance`` which map onto Flax
+  ``gamma/beta/moving_mean/moving_variance`` which map onto
   ``params.BatchNorm_i.scale/bias`` + ``batch_stats.BatchNorm_i.mean/var``.
 """
 
@@ -36,11 +36,10 @@ from __future__ import annotations
 
 import re
 
-import h5py
 import numpy as np
 
 _BN_MAP = {
-    # Keras weight name -> (collection, flax leaf)
+    # Keras weight name -> (collection, leaf)
     "gamma": ("params", "scale"),
     "beta": ("params", "bias"),
     "moving_mean": ("batch_stats", "mean"),
@@ -60,8 +59,10 @@ def _strip_suffix(name: str) -> str:
     return name.split(":")[0]
 
 
-def _collect_layers(f: h5py.File) -> list[tuple[str, dict]]:
+def _collect_layers(f) -> list[tuple[str, dict]]:
     """[(layer_name, {weight_name: array})] in file layer order."""
+    import h5py
+
     root = f["model_weights"] if "model_weights" in f else f
     order = root.attrs.get("layer_names")
     if order is not None:
@@ -133,6 +134,8 @@ def load_keras_variables(path: str, variables: dict) -> dict:
     """Fill a zoo variables pytree (``{"params": ..., "batch_stats"?}``)
     from a Keras HDF5 weight file.  See module docstring for the
     layer-mapping contract; any unmatched weight raises."""
+    import h5py
+
     with h5py.File(path, "r") as f:
         layers = _collect_layers(f)
 
@@ -224,6 +227,8 @@ def load_keras_weights(path: str, params: dict) -> dict:
     """Back-compat wrapper: fill a params pytree (no batch_stats) from a
     Keras HDF5 weight file.  Raises if the file carries BatchNorm state
     (use :func:`load_keras_variables` then)."""
+    import h5py
+
     with h5py.File(path, "r") as f:
         has_bn = any(
             _layer_kind(w) == "batchnorm" for _, w in _collect_layers(f)
@@ -238,7 +243,7 @@ def load_keras_weights(path: str, params: dict) -> dict:
 
 def save_keras_weights(path: str, variables: dict) -> None:
     """Write zoo weights as a Keras-compatible HDF5 weight file, layer
-    names = Flax layer names (round-trip partner of
+    names = the variables tree's layer names (round-trip partner of
     :func:`load_keras_variables`).  ``variables`` may be a full
     ``{"params", "batch_stats"}`` pytree or a bare params dict."""
     if "params" in variables and isinstance(variables["params"], dict):
@@ -255,8 +260,11 @@ def save_keras_weights(path: str, variables: dict) -> None:
         (k for k in params if k.startswith("BatchNorm")), key=_natural_key
     )
     names = conv_names + bn_names
+    import h5py
+
     with h5py.File(path, "w") as f:
         f.attrs["layer_names"] = np.array([n.encode() for n in names])
+        # layout tag, unchanged since the first files were written
         f.attrs["flypylib_tpu_layout"] = "flax"
         for name in conv_names:
             grp = f.create_group(name).create_group(name)

@@ -3,15 +3,14 @@
 Parity: flypylib fplmodels (SURVEY.md section 2.2 row 2): a baseline stack
 of valid 3D convolutions ending in a 1-channel output, a deeper VGG-like
 variant, and a 3D U-Net variant.  Each zoo entry returns a ``ModelSpec``
-carrying the Flax module together with its exact receptive-field
+carrying the module (:mod:`flypylib_tpu.models.layers`) together with its
+exact receptive-field
 ``context`` — the voxels lost per face to valid convolution — which drives
 all halo/stitching math (flypylib's ``(model, context)`` convention).
 
-TPU-first design choices:
+Design choices:
 
-- NDHWC layout (channels last) so channels map onto the 128-wide lane
-  dimension feeding the MXU; XLA lowers ``conv_general_dilated`` onto the
-  MXU as implicit GEMM.
+- NDHWC layout (channels last), DHWIO kernels.
 - VALID padding everywhere: output = input - 2*context exactly, which makes
   overlap-tiled inference bitwise identical to monolithic inference
   (SURVEY.md section 7.3) — no SAME-padding border contamination.
@@ -31,10 +30,17 @@ import functools
 from dataclasses import dataclass, field
 from typing import Any, Callable, Sequence
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
 import numpy as np
+
+from flypylib_tpu.models.layers import (
+    Module,
+    batch_norm,
+    conv,
+    conv_transpose,
+    max_pool,
+)
 
 
 @dataclass(frozen=True)
@@ -50,7 +56,7 @@ class ModelSpec:
     """
 
     name: str
-    module: nn.Module
+    module: Module
     context: int
     size_multiple: int = 1
     size_offset: int = 0
@@ -79,7 +85,8 @@ class ModelSpec:
         return self.module.apply(variables, x, train=train, rngs=rngs, **kw)
 
 
-class ConvStack(nn.Module):
+@dataclass(frozen=True)
+class ConvStack(Module):
     """Plain valid-conv stack with optional dilation schedule.
 
     context = sum(dilation_i * (kernel - 1) // 2) over the 3^3 convs.
@@ -92,31 +99,23 @@ class ConvStack(nn.Module):
     dtype: Any = jnp.bfloat16
     use_batchnorm: bool = False
 
-    @nn.compact
-    def __call__(self, x, train: bool = False):
+    def forward(self, s, x, train: bool = False):
         x = x.astype(self.dtype)
         k = (self.kernel,) * 3
         for f, d in zip(self.features, self.dilations):
-            x = nn.Conv(
-                f,
-                kernel_size=k,
-                padding="VALID",
-                kernel_dilation=(d, d, d),
-                dtype=self.dtype,
-            )(x)
+            x = conv(s, x, f, k, dilation=d, dtype=self.dtype)
             if self.use_batchnorm:
-                x = nn.BatchNorm(
-                    use_running_average=not train, dtype=self.dtype
-                )(x)
-            x = nn.relu(x)
+                x = batch_norm(s, x, train, dtype=self.dtype)
+            x = jax.nn.relu(x)
         # 1x1x1 head (dense-equivalent, voxel-wise)
-        x = nn.Conv(self.head_features, kernel_size=(1, 1, 1), dtype=self.dtype)(x)
-        x = nn.relu(x)
-        logits = nn.Conv(1, kernel_size=(1, 1, 1), dtype=jnp.float32)(x)
+        x = jax.nn.relu(conv(s, x, self.head_features, (1, 1, 1),
+                             dtype=self.dtype))
+        logits = conv(s, x, 1, (1, 1, 1), dtype=jnp.float32)
         return logits.astype(jnp.float32)
 
 
-class UNetValid(nn.Module):
+@dataclass(frozen=True)
+class UNetValid(Module):
     """3D U-Net with VALID convolutions and crop-and-concat skips.
 
     Original-U-Net-style valid tiling: every conv is valid, skips are
@@ -131,15 +130,13 @@ class UNetValid(nn.Module):
     convs_per_stage: int = 2
     dtype: Any = jnp.bfloat16
 
-    @nn.compact
-    def __call__(self, x, train: bool = False):
+    def forward(self, s, x, train: bool = False):
         x = x.astype(self.dtype)
         k = (3, 3, 3)
 
         def block(x, feats):
             for _ in range(self.convs_per_stage):
-                x = nn.Conv(feats, kernel_size=k, padding="VALID", dtype=self.dtype)(x)
-                x = nn.relu(x)
+                x = jax.nn.relu(conv(s, x, feats, k, dtype=self.dtype))
             return x
 
         skips = []
@@ -147,16 +144,14 @@ class UNetValid(nn.Module):
         for _ in range(self.levels):
             x = block(x, feats)
             skips.append(x)
-            x = nn.max_pool(x, window_shape=(2, 2, 2), strides=(2, 2, 2))
+            x = max_pool(x, 2)
             feats *= 2
 
         x = block(x, feats)
 
         for skip in reversed(skips):
             feats //= 2
-            x = nn.ConvTranspose(
-                feats, kernel_size=(2, 2, 2), strides=(2, 2, 2), dtype=self.dtype
-            )(x)
+            x = conv_transpose(s, x, feats, 2, dtype=self.dtype)
             # center-crop the skip to the upsampled size
             crops = [
                 (skip.shape[i] - x.shape[i]) // 2 for i in (1, 2, 3)
@@ -171,11 +166,11 @@ class UNetValid(nn.Module):
             x = jnp.concatenate([skip_c, x], axis=-1)
             x = block(x, feats)
 
-        logits = nn.Conv(1, kernel_size=(1, 1, 1), dtype=jnp.float32)(x)
+        logits = conv(s, x, 1, (1, 1, 1), dtype=jnp.float32)
         return logits.astype(jnp.float32)
 
 
-def _probe_geometry(module: nn.Module, lo: int = 8, hi: int = 120):
+def _probe_geometry(module, lo: int = 8, hi: int = 120):
     """Numerically determine (context, size_multiple, size_offset, min_size)
     by shape-probing ``eval_shape`` over candidate input sizes."""
     def f(x):

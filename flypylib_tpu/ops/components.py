@@ -8,11 +8,11 @@ section 3.3; semantics pinned in flypylib_tpu.ops.host_reference).
 XLA has no native CC, so labeling runs as an iterative fixed point
 (SURVEY.md section 7.3): each voxel's label starts as its own flat index
 and every sweep takes the min over 6-neighbors within the mask.  Sweeps
-are pure shifted-element-wise mins (VPU-friendly, no gathers); several
+are pure shifted-element-wise mins (no gathers); several
 sweeps run between convergence checks to amortize the check.  An optional
 pointer-jumping step (``label = label[label]``, a gather) contracts long
 chains for high-diameter masks — off by default because random-access
-gathers are slow on TPU and synapse-scale components have small diameter.
+gathers are slow and synapse-scale components have small diameter.
 
 Extraction stays on device with static shapes: component roots (voxels
 whose label is their own index) are compacted with ``lax.top_k`` over
@@ -37,17 +37,14 @@ def compact_true_indices(mask_flat: jax.Array, size: int) -> jax.Array:
     """First ``size`` True positions, ascending, padded with ``n``.
 
     Drop-in for ``jnp.nonzero(mask, size=..., fill_value=n)[0]`` — but
-    without XLA's nonzero lowering (scatter-compacts the full volume;
-    measured 150 ms vs 15 ms at 256^3) and without a flat
-    cumsum+searchsorted (whose binary search does log2(n) rounds of
-    random scalar gathers into the full-volume array — measured 387 ms
-    at 512^3 with 524k queries; experiments/cc_profile.jsonl).
+    without XLA's nonzero lowering (scatter-compacts the full volume)
+    and without a flat cumsum+searchsorted (whose binary search does
+    log2(n) rounds of random scalar gathers into the full-volume array).
 
     Three-level scheme; the full volume is touched by exactly ONE
     reduction pass, and every per-query step works on small or
-    contiguous data (experiments/compact_profile.jsonl, 512^3 with 64k
-    queries: 20 ms vs 49 ms for the previous two-level version, whose
-    cost was materializing the full (R, 128) within-block cumsum —
+    contiguous data (the previous two-level version's cost was
+    materializing the full (R, 128) within-block cumsum —
     537 MB written and row-gathered):
 
     - reshape to (R, 128) blocks; ONE pass computes per-block counts

@@ -1,6 +1,6 @@
 """Host-side (NumPy/SciPy) reference implementations of the detection ops.
 
-These pin the exact semantics that the on-device (XLA/Pallas) versions must
+These pin the exact semantics that the on-device (XLA) versions must
 reproduce bit-for-bit at the detection-list level.  Parity: flypylib
 fplobjdetect (SURVEY.md section 2.2 row 3, section 3.3): NMS via 3D
 max-filter comparison, connected-components labeling via

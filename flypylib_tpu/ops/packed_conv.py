@@ -1,21 +1,20 @@
 """Space-to-depth packed inference engine for ConvStack models.
 
-Round-2 perf headline (BENCH_NOTES.md "Why not 100 Mvox/s"): XLA's 3D conv
-on TPU is MXU-bound by channel width — measured on this chip
-(experiments/conv_sweep.jsonl): 8.6–18.6 TFLOP/s at the baseline stack's
-24–64 channels vs 100–129 TFLOP/s at >=128 channels.  The fix is a
-graph-level layout rewrite, not a hand kernel:
+The baseline stack's convolutions are narrow (24-64 channels); this
+engine widens them by a graph-level layout rewrite, not a hand kernel.
+It was built for a matrix unit that ran narrow convs far below its peak;
+whether it beats the plain module on the GPU is measured per cell
+(``FplNetwork(packed=)``, ``TrainConfig(engine=)``).
 
 - **Dilation-1 layers — space-to-depth channel packing.**  The volume is
   packed 2x2x2 -> 8 channels; a valid 3^3 conv becomes a valid 2^3 conv
   with 8x the channels (the 2^3 x 8 = 64-slot packed kernel embeds the 27
-  taps, 2.37x redundant FLOPs) — but it runs ~48-75 TFLOP/s, a >2x net
-  win, because 8x channels fill the 128-wide MXU lanes.
+  taps, 2.37x redundant FLOPs).
 - **Dilation-2^k layers — parity-lattice batching.**  A dilation-d conv
   only connects voxels of equal coordinates mod d.  On the packed tensor
   the 8 parity channel groups ARE the d=2 sub-lattices, so a dilation-2
   layer is exactly a batch of 8 dilation-1 convs on half-resolution
-  lattices (measured ~2x over the direct dilated conv); dilation-4 splits
+  lattices; dilation-4 splits
   parities once more (batch 64), etc.
 
 All rewrites are exact re-associations of the same multiply-adds (packed
@@ -28,9 +27,9 @@ a drop-in :class:`~flypylib_tpu.models.zoo.ModelSpec`, so TiledInference /
 DetectPipeline / sharded_infer work unchanged (and stay bitwise
 self-consistent tiled vs monolithic).
 
-Training still uses the plain Flax module (patch convs are tiny; the
-packed path is inference-only and delegates ``train=True`` to the inner
-module, keeping one params tree for checkpoints and Keras import).
+``apply(train=True)`` delegates to the inner module (one params tree for
+checkpoints and Keras import); :meth:`PackedConvStack.forward_train` is
+the differentiable packed forward the packed train engine runs.
 """
 
 from __future__ import annotations
@@ -88,15 +87,14 @@ def _unpack_volume_iv_impl(x: jax.Array) -> jax.Array:
     return x.reshape(b, 2 * d, 2 * h, 2 * w, c)
 
 
-# Hand-written VJPs (VERDICT r04 item 4).  pack/unpack are inverse
+# Hand-written VJPs.  pack/unpack are inverse
 # PERMUTATIONS of the same elements, so the cotangent of one is exactly
 # the other applied to the incoming cotangent — bitwise, not just
 # mathematically.  Routing every backward through the *_iv interleave
 # forms avoids the cotangent graphs XLA derives on its own (the strided
 # slices in pack_volume_iv transpose to interior-padded pads that are
 # then summed — full-size padded temps per axis; the 8-D transpose
-# forms relayout-copy at training shapes — commit c87b5eb,
-# experiments/train_packed_anatomy.jsonl).
+# forms relayout-copy at training shapes).
 
 def _mk_pack_vjp(fwd_impl, bwd_impl):
     f = jax.custom_vjp(fwd_impl)
@@ -123,10 +121,10 @@ pack_volume_iv = _mk_pack_vjp(_pack_volume_iv_impl, _unpack_volume_iv_impl)
 pack_volume_iv.__name__ = "pack_volume_iv"
 pack_volume_iv.__doc__ = """:func:`pack_volume` by three per-axis de-interleaves (split-
     reshape + strided slices with channel concat) instead of one 8-D
-    transpose.  Bitwise the same values; the transpose form's TPU
-    layout copy costs 14.65 GB of temp at a (388^3, 1) f32 tile vs ~0
-    for this form (experiments/pack_mem_probe.py).  Use for big-spatial
-    packs (the U-Net covering tiles); small tiles are fine either way.
+    transpose.  Bitwise the same values; the transpose form can make
+    XLA's layout assignment copy the whole tile into a padded layout,
+    this form cannot.  Use for big-spatial packs (the U-Net
+    covering tiles); small tiles are fine either way.
     Backward is the hand-written de-interleave (see _mk_pack_vjp)."""
 
 unpack_volume_iv = _mk_pack_vjp(_unpack_volume_iv_impl, _pack_volume_iv_impl)
@@ -134,14 +132,12 @@ unpack_volume_iv.__name__ = "unpack_volume_iv"
 unpack_volume_iv.__doc__ = """:func:`unpack_volume` by three per-axis channel-split interleaves
     (stack + merge-reshape) instead of one 8-D transpose.
 
-    Bitwise the same values.  The one-shot transpose form makes XLA's
-    TPU layout assignment materialize the (..., 2, 2, 2, c) parity view
-    in a (8,128)-tiled layout with the size-2 parity dims minor — padded
-    64x, a 7-10 GB temp on 300^3-class tiles (AOT memory analysis in
-    experiments/shared_unet_mem2.py; it silently taxed every packed
-    U-Net forward and OOM'd the 1k^3 shared-forward mode).  The
-    per-axis stacks keep a wide channel dim minor at every step, so each
-    materialization is a sane unpadded copy.  Backward is the
+    Bitwise the same values.  The one-shot transpose form let the first
+    platform's layout assignment materialize the (..., 2, 2, 2, c)
+    parity view with the size-2 parity dims minor — padded 64x, a
+    multi-GB temp on 300^3-class tiles.  The per-axis stacks keep a wide
+    channel dim minor at every step, so each materialization is an
+    unpadded copy.  Backward is the
     hand-written interleave (see _mk_pack_vjp)."""
 
 
@@ -196,12 +192,9 @@ def _parity_merge_impl(x: jax.Array) -> jax.Array:
 
 def _mk_parity_vjp(fwd_impl, bwd_impl):
     """custom_vjp whose backward is the hand-written inverse permutation
-    BEHIND an optimization_barrier.  The forward chain needed exactly
-    this barrier (round-3 chain_fix: XLA fused the parity-split
-    transpose into the first stage-B conv at ~6x cost); the backward
-    chain has the mirrored structure (cotangent relayout feeding the
-    transposed convs) and no barrier of its own — commit c87b5eb
-    attributes the packed-train plateau to these cotangents."""
+    BEHIND an optimization_barrier, mirroring the forward chain's
+    barrier (which keeps XLA from fusing the parity-split transpose into
+    the first stage-B conv)."""
     f = jax.custom_vjp(fwd_impl)
     f.defvjp(lambda x: (fwd_impl(x), None),
              lambda _, g: (lax.optimization_barrier(bwd_impl(g)),))
@@ -242,10 +235,10 @@ parity_batch.__doc__ = """Packed parity-major channels -> parity-batched lattice
 
 
 def _conv(x, w, dims=("NDHWC", "DHWIO", "NDHWC")):
-    # No preferred_element_type: the MXU still accumulates in f32
+    # No preferred_element_type: the convolution accumulates in f32
     # internally, but the output rounds straight to the compute dtype —
-    # exactly flax nn.Conv's dataflow, and half the HBM for bf16
-    # activation temps (a 284^3 streaming tile OOMs with f32 temps).
+    # exactly models.layers.conv's dataflow, and half the device memory
+    # for bf16 activation temps.
     return lax.conv_general_dilated(
         x, w, (1, 1, 1), "VALID", dimension_numbers=dims,
     )
@@ -255,7 +248,7 @@ class PackedConvStack:
     """Duck-typed inference module running a ConvStack in packed layout.
 
     Drop-in for ``ModelSpec.module``: exposes ``init`` (delegates to the
-    inner Flax module — ONE params tree for both paths) and ``apply``
+    inner module — ONE params tree for both paths) and ``apply``
     (packed fast path for ``train=False``, inner module for training).
     """
 
@@ -283,9 +276,8 @@ class PackedConvStack:
         # only connects equal-parity voxels, so cell dilation d/2 per
         # group is exact) — exact, looser size constraints
         # (size_multiple stays 2 even with dilation 4), but
-        # measured-and-REJECTED for the default: XLA lowers
-        # feature-group convs poorly on TPU (full chain 41.8 ms vs 24.7
-        # split — experiments/chain_fix.jsonl round 3).  Kept for A/B
+        # not the default: feature-group convs lowered poorly on the
+        # first platform (not yet measured on the GPU).  Kept for A/B
         # and for dilation-4 models that need the looser alignment.
         self.stage_b = stage_b if self.n_lead else "split"
         self.dtype = inner.dtype
@@ -333,12 +325,10 @@ class PackedConvStack:
     # The packed forward split at the parity-split boundary.  Composing
     # the phases in ONE jit reproduces the monolithic forward exactly
     # (the phase boundary is where _forward's optimization_barrier sat);
-    # running them as SEPARATE dispatches removes an XLA scheduling
-    # pathology the barrier only partially fixed: the first stage-B conv
-    # costs 13.6 ms in-executable after the split vs 2.8 ms when the
-    # split output crosses a jit boundary (round-3 chain_fix3 study) —
-    # DetectPipeline uses this to run each slab as phase-A + phase-B
-    # dispatches (~1.9x on the conv chain).
+    # running them as SEPARATE dispatches removed a scheduling pathology
+    # of the first platform's compiler that the barrier only partially
+    # fixed — DetectPipeline can run each slab as phase-A + phase-B
+    # dispatches (``two_phase``; not yet A/B'd on the GPU).
 
     def apply_stage_a(self, variables, x):
         """Phase 1: cast + pack + stage-A packed convs + parity split.
@@ -436,9 +426,8 @@ class PackedConvStack:
         is value-exact, so the f32 conv gains nothing from the input
         side).  Split the f32 weight into two bf16 terms (w = hi + lo,
         ~16 mantissa bits) stacked on the output channel, run ONE bf16
-        conv with f32 MXU accumulation, and sum — measured 2.2x faster
-        (experiments/t64_profile.jsonl) at ~1e-6 relative error vs the
-        f32 conv, far inside the engine's bf16-parity tolerance.
+        conv with f32 accumulation, and sum — ~1e-6 relative error vs
+        the f32 conv, far inside the engine's bf16-parity tolerance.
 
         ``groups`` > 1 runs the (parity-independent) 1x1 conv per parity
         group of a packed tensor; output is (..., groups) logits."""
@@ -470,10 +459,8 @@ class PackedConvStack:
         tensor; on the cell lattice its taps step d/2 cells.  So each
         dilated 3^3 layer is ONE feature-group conv (groups = the 8
         parity channel groups, kernel tiled per group, rhs_dilation
-        d/2) — no parity_split relayout, no batch blow-up.  Measured:
-        the split transpose composed with the first stage-B conv at 16.5
-        ms vs 2.7 standalone (experiments/chain_prefix.jsonl); the
-        grouped form runs the same FLOPs straight off the packed layout.
+        d/2) — no parity_split relayout, no batch blow-up; the grouped
+        form runs the same FLOPs straight off the packed layout.
         """
         n_body = len(self.inner.features)
         for i in range(self.n_lead, n_body):

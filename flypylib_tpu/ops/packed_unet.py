@@ -1,8 +1,7 @@
 """Space-to-depth packed inference engine for the valid-conv U-Net.
 
-Same idea as :mod:`flypylib_tpu.ops.packed_conv` (channels x8 fill the
-128-wide MXU lanes; the 24-96-channel U-Net otherwise runs at 8-28
-TFLOP/s — BENCH_NOTES.md), extended to the pooling topology:
+Same idea as :mod:`flypylib_tpu.ops.packed_conv` (every conv runs 8x the
+channels on a half-resolution lattice), extended to the pooling topology:
 
 - every valid 3^3 conv becomes a valid 2^3 conv on the 2x2x2-packed
   lattice (``pack_weight_d1`` embeds the original taps exactly);
@@ -11,9 +10,9 @@ TFLOP/s — BENCH_NOTES.md), extended to the pooling topology:
   packed cell) — no spatial op at all;
 - **ConvTranspose kernel-2 stride-2 is FOLDED into the next conv's
   weights**: output voxel ``2r+p`` receives exactly one tap,
-  ``x[r] @ K[1-p]`` (flax flips the kernel; probed numerically), and no
-  activation sits between the upsample and the decoder block's first
-  conv — so the conv's up-channel taps contract with ``K`` once, in the
+  ``x[r] @ K[1-p]`` (``layers.conv_transpose`` reads the kernel
+  flipped), and no activation sits between the upsample and the
+  decoder block's first conv — so the conv's up-channel taps contract with ``K`` once, in the
   weights, shrinking the conv input from ``8(Cs+Cu)`` to ``8Cs + Cc``
   channels and removing the upsample op entirely;
 - crop-and-concat skips are cropped IN the packed domain
@@ -25,14 +24,13 @@ All rewrites re-associate the same multiply-adds, so outputs match
 packed model's size constraints are stricter (every pack step needs even
 extents); :func:`packed_unet_spec` probes them numerically and exports a
 drop-in ModelSpec, so TiledInference/DetectPipeline/sharded_infer work
-unchanged.  Training delegates to the inner Flax module (one params tree
-for checkpoints and Keras import).
+unchanged.  Training delegates to the inner module (one params tree for
+checkpoints and Keras import).
 """
 
 from __future__ import annotations
 
 import functools
-import warnings
 
 import jax
 import jax.numpy as jnp
@@ -59,26 +57,22 @@ def parity_group_max(x: jax.Array) -> jax.Array:
 
 def pool_pack(x: jax.Array, grad_exact: bool = False) -> jax.Array:
     """``pack_volume(parity_group_max(x))`` — the U-Net's per-level
-    pool+repack — with max and repack forms picked for TPU layouts.
+    pool+repack.
 
     Values are bitwise identical across every form (max is exactly
     associative); the forms differ ONLY in speed and tie-gradient
     splitting:
 
     - max: a channel-slice ``jnp.maximum`` tree (no ``(..., 8, C)``
-      reshape — the minor-dim split to C=24 lanes is pad-hostile).
+      minor-dim reshape).
       With ``grad_exact=True`` the :func:`parity_group_max` reduce is
       used instead, whose cotangent splits ties exactly like the plain
       engine's pool (the maximum chain orders ties differently; ReLU
       activations tie at 0.0 often, and the packed==plain TRAINING
       equality is test-pinned) — :meth:`PackedUNet.forward_train` sets
       it.
-    - repack: :func:`pack_volume_iv` per-axis slices.  The previous
-      form (8 triple-strided slices, one per parity) was the round-3
-      fix at t128b2 but is PATHOLOGICAL at covering-tile shapes: 219 ms
-      at tin 388 — 43% of the whole forward — vs ~35 for this form
-      (experiments/pool_probe.jsonl; even the one-shot 8-D transpose
-      beats the triple-strided slices there).
+    - repack: :func:`pack_volume_iv` per-axis slices (no 8-D
+      transpose, no triple-strided slices).
     """
     if any(s % 2 for s in x.shape[1:4]):
         raise ValueError(f"pool_pack needs even cell dims, got {x.shape}")
@@ -94,9 +88,10 @@ def pool_pack(x: jax.Array, grad_exact: bool = False) -> jax.Array:
 
 def convT_packed_weight(k: jax.Array) -> jax.Array:
     """(2,2,2,Ci,Co) ConvTranspose kernel -> (Ci, 8Co) matrix whose
-    output channels are parity-major packed.  Flax's ConvTranspose
-    computes ``out[2r+p] = x[r] @ K[1-p]`` for kernel == stride == 2
-    (numerically probed), so parity p reads the flipped tap."""
+    output channels are parity-major packed.  The zoo's ConvTranspose
+    (:func:`flypylib_tpu.models.layers.conv_transpose`) computes
+    ``out[2r+p] = x[r] @ K[1-p]`` for kernel == stride == 2, so parity
+    p reads the flipped tap."""
     cols = [k[1 - pz, 1 - py, 1 - px] for pz, py, px in _PARITY]
     return jnp.concatenate(cols, axis=-1)
 
@@ -161,70 +156,32 @@ class PackedUNet:
     """Duck-typed inference module running a UNetValid in packed layout.
 
     Drop-in for ``ModelSpec.module``: ``init`` delegates to the inner
-    Flax module (ONE params tree for both paths); ``apply`` runs the
+    module (ONE params tree for both paths); ``apply`` runs the
     packed fast path for ``train=False`` and the inner module for
     training."""
 
     def __init__(self, inner: UNetValid, barriers: bool = False,
-                 tail_impl: str = "xla", tail_block=(3, 3, 1 << 30),
                  fold_form: str = "split"):
         # ``barriers``: materialize each pack_volume relayout with
-        # lax.optimization_barrier before the conv that consumes it —
-        # the same transpose-fused-into-conv defect fixed in
-        # PackedConvStack (experiments/chain_fix2.jsonl); A/B'd in
-        # experiments/unet_profile.py
+        # lax.optimization_barrier before the conv that consumes it
+        # (kept off by default; an A/B knob for the relayout placement)
         #
-        # ``tail_impl="pallas"``: route the level-0 decoder epilogue
-        # (fold conv + following convs + logits) through the fused
-        # :func:`flypylib_tpu.ops.pallas_tail.packed_tail` kernel —
-        # the big-spatial stages where XLA's monolithic convs collapse
-        # (experiments/dec0_retile.jsonl).  Batch-1 inference only
-        # (covering-tile forwards); other shapes fall back to the XLA
-        # path.  ``tail_block`` is the Pallas (BZ, BY, BX) output block
-        # (x is always full-width on real TPU — Mosaic lane rule).
-        #
-        # ``tail_impl="pallas_fold"``: route ONLY the level-0 fold conv
-        # (the single biggest in-chain collapse: 74.7 ms at 52.9 TF/s,
-        # unet_prefix2.jsonl) through the kernel and keep the following
-        # convs + logits on XLA.  STANDALONE-kernel winner only so far:
-        # 83.9 useful TF/s at block (3,3,full-x) — 1.33x the XLA
-        # standalone anchor (BENCH_NOTES round 6b) — but the in-chain
-        # full-forward A/B (experiments/unet_pallas_tail_ab.py) is
-        # still pending, and round 6a showed an in-chain boundary
-        # tensor can erase a standalone win.  The full-chain "pallas"
-        # variant is VMEM-walled at b2x2 where halo recompute eats it.
         # ``fold_form``: how each decoder stage consumes the PRE-concat
-        # skip (sc) and upsampled (x) tensors (VERDICT r04 item 1 —
-        # native-layout formulations of the level-0 boundary):
+        # skip (sc) and upsampled (x) tensors:
         #   "split" (default): conv(sc, w_skip) + conv(x, w_up_eff)
         #             summed — the concat tensor never materializes;
-        #             each input is read in its producer's layout.
-        #             Measured 354.6 -> 342.5 ms on the production
-        #             tin-388 forward (+3.5%; +2.2% at tin 428 —
-        #             experiments/unet_fold_split_ab.jsonl).  Same
-        #             products as "concat", MXU accumulation grouping
-        #             differs (bf16-class drift: 4 of 1619 detections
-        #             shift at the 256^3 operating point — within the
-        #             engine's packed-vs-plain re-association contract;
+        #             each input is read in its producer's layout.  Same
+        #             products as "concat"; the accumulation grouping
+        #             differs (bf16-class drift, within the engine's
+        #             packed-vs-plain re-association contract;
         #             tiled==monolithic stays bitwise WITHIN the form).
-        #   "concat": xin = concat([sc, x]); one fold conv (the
-        #             pre-round-5 spelling, kept for A/B).
-        #   "split0": "split" at level 0 only (measured between the
-        #             two: 346.7 ms at tin 388).
-        # "pallas2"/"pallas_fold2": the PRE-CONCAT kernels — stage 0
-        # reads the skip and upsampled tensors as separate refs and sums
-        # two VMEM dots (ops/pallas_tail.packed_tail2), so the 240-wide
-        # concat boundary of round 7b never materializes.
-        if tail_impl not in ("xla", "pallas", "pallas_fold",
-                            "pallas2", "pallas_fold2"):
-            raise ValueError(f"unknown tail_impl {tail_impl!r}")
+        #   "concat": xin = concat([sc, x]); one fold conv.
+        #   "split0": "split" at level 0 only.
         if fold_form not in ("concat", "split", "split0"):
             raise ValueError(f"unknown fold_form {fold_form!r}")
         self.inner = inner
         self.barriers = barriers
-        self.tail_impl = tail_impl
         self.fold_form = fold_form
-        self.tail_block = tuple(tail_block)
         self.dtype = inner.dtype
 
     def init(self, key, x, train: bool = False):
@@ -271,9 +228,7 @@ class PackedUNet:
             return jax.nn.relu(y)
 
         bar = lax.optimization_barrier if self.barriers else (lambda v: v)
-        # de-interleave form: the one-shot pack transpose costs a
-        # 14.65 GB padded layout copy at U-Net covering-tile shapes
-        # (pack_volume_iv docstring / experiments/pack_mem_probe.py)
+        # de-interleave form (see pack_volume_iv)
         x = bar(pack_volume_iv(x.astype(dt)))
         skips = []
         for _ in range(levels):
@@ -291,8 +246,7 @@ class PackedUNet:
         for _ in range(cps):
             x = packed_conv_relu(x, conv_i)
             conv_i += 1
-        # interleave form: the one-shot unpack transpose costs a 64x-
-        # padded multi-GB layout copy on TPU (unpack_volume_iv docstring)
+        # interleave form (see unpack_volume_iv)
         x = bar(unpack_volume_iv(x))  # dense at the deepest resolution
 
         for lev in reversed(range(levels)):
@@ -304,9 +258,8 @@ class PackedUNet:
             #   contract with K once, in the weights.  This removes the
             #   upsample op AND shrinks the conv input from 8*(Cs+Cu)
             #   channels to 8*Cs + Cc — and the skip is cropped by pure
-            #   packed-domain slices (crop_packed), so the decoder's
-            #   unpack->crop->repack relayouts (the round-2 U-Net perf
-            #   sink, VERDICT round 2) are gone entirely.
+            #   packed-domain slices (crop_packed), so the decoder has
+            #   no unpack->crop->repack relayouts.
             kT = params[f"ConvTranspose_{levels - 1 - lev}"]
             Kt = kT["kernel"].astype(jnp.float32)  # (2,2,2, Cc, Cu)
             bT = kT["bias"].astype(jnp.float32)  # (Cu,)
@@ -339,74 +292,10 @@ class PackedUNet:
             ]  # (2*cells - size)//2 per side
             sc = crop_packed(skip, starts, sizes)
 
-            if (
-                lev == 0
-                and self.tail_impl in ("pallas2", "pallas_fold2")
-                and not f32_logits
-                and x.shape[0] == 1
-            ):
-                # pre-concat kernels: stage 0 reads skip + upsampled as
-                # separate refs (the round-7b revival condition)
-                stage0 = (
-                    w_skip.astype(dt), w_up_eff.astype(dt),
-                    b_fold.astype(dt),
-                )
-                if self.tail_impl == "pallas2":
-                    return self._pallas_tail2(
-                        params, sc, x.astype(dt), conv_i, stage0
-                    )
-                from .pallas_tail import packed_tail2
-
-                x = packed_tail2(
-                    sc[0], x[0].astype(dt), stage0,
-                    block=self.tail_block,
-                    interpret=jax.default_backend() != "tpu",
-                )[None]
-                conv_i += 1
-                for _ in range(cps - 1):
-                    x = packed_conv_relu(x, conv_i)
-                    conv_i += 1
-                continue  # lev == 0: loop ends, logits follow
-            # a Pallas kernel actually consumes this stage only at
-            # lev==0 / batch-1 / bf16-logits; everywhere else (incl.
-            # the batch>1 XLA fallback of pallas engines) the fold_form
-            # governs, so fallback == the xla engine bit-for-bit
-            pallas_here = (
-                lev == 0
-                and not f32_logits
-                and x.shape[0] == 1
-                and self.tail_impl != "xla"
-            )
-            if (
-                lev == 0
-                and self.tail_impl != "xla"
-                and not f32_logits
-                and x.shape[0] != 1
-            ):
-                # trace-time warning (shapes are static): a non-xla
-                # tail_impl quietly mixing Pallas (batch-1 tiles) and
-                # XLA (batched tiles) f32 accumulation orders would
-                # break the tiled==monolithic bitwise invariant for
-                # opt-in users — ADVICE round 3.  Lives ABOVE the
-                # fold_form branch so it fires for every fallback
-                # spelling (the round-5 split default made the old
-                # concat-path copy unreachable — code review r5).
-                # Inference only: the training path (f32_logits) can
-                # never take a Pallas tail, so warning there would
-                # re-fire each recompile for opted-in training.
-                warnings.warn(
-                    f"tail_impl={self.tail_impl!r} supports only "
-                    "batch-1 bf16-logits inference; this shape falls "
-                    "back to the XLA tail, whose f32 accumulation "
-                    "order differs from the Pallas kernel — bitwise "
-                    "tiled==monolithic holds only within one tail "
-                    "implementation",
-                    stacklevel=2,
-                )
             use_split = self.fold_form == "split" or (
                 self.fold_form == "split0" and lev == 0
             )
-            if use_split and not pallas_here:
+            if use_split:
                 # pre-concat consumption: two convs summed; the
                 # (8Cs+Cc)-channel boundary tensor never materializes
                 y = (
@@ -423,36 +312,8 @@ class PackedUNet:
                     x = bar(unpack_volume_iv(x))
                 continue
             xin = jnp.concatenate([sc, x.astype(dt)], axis=-1)
-            if (
-                lev == 0
-                and self.tail_impl == "pallas"
-                and not f32_logits
-                and xin.shape[0] == 1
-            ):
-                return self._pallas_tail(
-                    params, xin, conv_i, w_fold, b_fold
-                )
-            if (
-                lev == 0
-                and self.tail_impl == "pallas_fold"
-                and not f32_logits
-                and xin.shape[0] == 1
-            ):
-                from .pallas_tail import packed_tail
-
-                # single-stage fused fold conv (+bias +ReLU, the
-                # kernel's epilogue) — same rounding points as the XLA
-                # spelling below, f32 tap-accumulation order differs
-                x = packed_tail(
-                    xin[0],
-                    [(w_fold.astype(dt), b_fold.astype(dt))],
-                    None,
-                    block=self.tail_block,
-                    interpret=jax.default_backend() != "tpu",
-                )[None]
-            else:
-                y = _conv2(xin, w_fold.astype(dt)) + b_fold.astype(dt)
-                x = jax.nn.relu(y)
+            y = _conv2(xin, w_fold.astype(dt)) + b_fold.astype(dt)
+            x = jax.nn.relu(y)
             conv_i += 1
             for _ in range(cps - 1):
                 x = packed_conv_relu(x, conv_i)
@@ -479,11 +340,9 @@ class PackedUNet:
         else:
             # block-diagonal (8C, 8) weight: y[..., p] = x-group-p @ w0.
             # Same products as the grouped (..., 8, C) dot but WITHOUT
-            # the minor-dim reshape to C=24 lanes (pad-hostile) —
-            # 354 -> 345 ms on the tin-388 forward
-            # (experiments/unet_fold_probe.jsonl).  Not bitwise vs the
-            # grouped form: the 8C-wide dot's MXU partial sums chunk
-            # differently (3.7e-9 — pure f32 accumulation order).
+            # the minor-dim reshape.  Not bitwise vs the grouped form:
+            # the 8C-wide dot's partial sums chunk differently (pure
+            # f32 accumulation order).
             eye = jnp.eye(8, dtype=jnp.float32)
             w_bd = jnp.einsum("c,gp->gcp", w0[:, 0], eye).reshape(c8, 8)
             w_hi = w_bd.astype(dt)
@@ -497,79 +356,6 @@ class PackedUNet:
             y = y[..., :8] + y[..., 8:] + bl  # (B, D, H, W, 8)
         return unpack_volume_iv(y.reshape(b_, d, h, w_sp, 8 * 1))
 
-    def _tail_epilogue_args(self, params, conv_i, fold_out_c):
-        """Shared operand prep for both fused tail kernels: the
-        ``cps - 1`` packed convs AFTER the fold stage, plus the
-        block-diagonal split-weight logits operands (hi/lo bf16 columns
-        with f32 accumulation — the same rounding points as the XLA
-        epilogue).  One copy so a future change to the rounding points
-        or the block-diagonal layout cannot diverge the kernel paths
-        (code review r5)."""
-        dt = self.dtype
-        cps = self.inner.convs_per_stage
-        extra = []
-        for j in range(1, cps):
-            p = params[f"Conv_{conv_i + j}"]
-            extra.append(
-                (
-                    pack_weight_d1(p["kernel"].astype(dt)),
-                    jnp.tile(p["bias"].astype(dt), 8),
-                )
-            )
-        pl_ = params[f"Conv_{conv_i + cps}"]
-        wl = pl_["kernel"].astype(jnp.float32)
-        # the 1-channel logits bias reaches all 8 parity lanes; the
-        # kernel sizes L from bl, so broadcast it explicitly
-        bl = jnp.broadcast_to(pl_["bias"].astype(jnp.float32), (8,))
-        w0 = wl[0, 0, 0]  # (C, 1)
-        c8 = extra[-1][0].shape[-1] if extra else fold_out_c
-        eye = jnp.eye(8, dtype=jnp.float32)
-        w_bd = jnp.einsum("c,gp->gcp", w0[:, 0], eye).reshape(c8, 8)
-        w_hi = w_bd.astype(dt)
-        w_lo = (w_bd - w_hi.astype(jnp.float32)).astype(dt)
-        wcat = jnp.concatenate([w_hi, w_lo], axis=-1)  # (8C, 16)
-        return extra, (wcat, bl)
-
-    def _pallas_tail(self, params, xin, conv_i, w_fold, b_fold):
-        """Level-0 epilogue via the fused Pallas kernel.
-
-        Consumes the concatenated (1, D, H, W, 8Cs+Cc) decoder input and
-        produces the unpacked prob-map logits — the same math (and the
-        same rounding points) as the XLA tail: fold conv + ReLU,
-        ``cps - 1`` packed convs + ReLU, block-diagonal split-weight
-        logits dot summed in f32.  Only the f32 tap-accumulation order
-        differs (documented in :mod:`flypylib_tpu.ops.pallas_tail`)."""
-        from .pallas_tail import packed_tail
-
-        dt = self.dtype
-        fold = (w_fold.astype(dt), b_fold.astype(dt))
-        extra, logits = self._tail_epilogue_args(
-            params, conv_i, fold[0].shape[-1]
-        )
-        y = packed_tail(
-            xin[0], [fold] + extra, logits, block=self.tail_block,
-            interpret=jax.default_backend() != "tpu",
-        )  # (D-cps, H-cps, W-cps, 8) f32
-        return unpack_volume_iv(y[None])
-
-    def _pallas_tail2(self, params, sc, xup, conv_i, stage0):
-        """Level-0 epilogue via the PRE-CONCAT fused kernel: stage 0
-        consumes the cropped skip (``sc``) and the upsampled dense
-        tensor (``xup``) as separate refs (``packed_tail2``), then the
-        remaining packed convs + split-weight logits run fused exactly
-        like :meth:`_pallas_tail`."""
-        from .pallas_tail import packed_tail2
-
-        extra, logits = self._tail_epilogue_args(
-            params, conv_i, stage0[0].shape[-1]
-        )
-        y = packed_tail2(
-            sc[0], xup[0], stage0, extra, logits,
-            block=self.tail_block,
-            interpret=jax.default_backend() != "tpu",
-        )
-        return unpack_volume_iv(y[None])
-
     def __repr__(self):
         return f"PackedUNet({self.inner!r})"
 
@@ -582,19 +368,10 @@ def _packed_unet_geometry(module: UNetValid):
 
 def packed_unet_spec(spec: ModelSpec,
                      barriers: bool = False,
-                     tail_impl: str = "xla",
                      fold_form: str = "split") -> ModelSpec | None:
     """A ModelSpec running a UNetValid ``spec`` through the packed
     engine, or ``None`` when the module is not a UNetValid.  Shares the
     inner params tree; exports the packed (stricter) size constraints.
-
-    ``tail_impl`` other than ``"xla"`` routes the level-0 decoder tail
-    through the Pallas kernel for **batch-1 bf16-logits inference
-    only**; batched or f32-logits shapes fall back to the XLA tail
-    (with a one-time warning).  Because Pallas and XLA f32 accumulation
-    orders differ, the tiled==monolithic *bitwise* invariant holds only
-    when every tile takes the same tail path — keep batch geometry
-    uniform when opting in.
 
     ``fold_form`` selects how decoder stages consume the pre-concat
     skip/upsampled tensors ("split" — the measured default — "split0",
@@ -603,8 +380,7 @@ def packed_unet_spec(spec: ModelSpec,
     if not isinstance(module, UNetValid):
         return None
     try:
-        pm = PackedUNet(module, barriers=barriers, tail_impl=tail_impl,
-                        fold_form=fold_form)
+        pm = PackedUNet(module, barriers=barriers, fold_form=fold_form)
         ctx, mult, off, min_size = _packed_unet_geometry(module)
     except (ValueError, TypeError):
         return None

@@ -1,13 +1,14 @@
-"""Multi-host (pod) bring-up helpers.
+"""Multi-process bring-up helpers.
 
-Aux subsystem (SURVEY.md section 2.3, eval config 5 [B:11]): on a TPU pod
-each host runs the same program; ``jax.distributed.initialize`` wires the
-hosts together, after which ``jax.devices()`` spans the whole slice and
-the mesh/shard_map code in this package runs unchanged (XLA routes
-collectives over ICI within a slice and DCN across slices).
+Aux subsystem (SURVEY.md section 2.3, eval config 5 [B:11]): in a
+multi-process job each process runs the same program;
+``jax.distributed.initialize`` wires the processes together, after which
+``jax.devices()`` spans every process's devices and the mesh/shard_map
+code in this package runs unchanged (XLA hands the collectives to the
+backend's communication library).
 
-Single-host (including this sandbox and the CPU test mesh) is a no-op, so
-library code can call :func:`ensure_initialized` unconditionally.
+A single process (including the CPU test mesh) is a no-op, so library
+code can call :func:`ensure_initialized` unconditionally.
 """
 
 from __future__ import annotations
@@ -27,41 +28,37 @@ def ensure_initialized(
     num_processes: int | None = None,
     process_id: int | None = None,
 ) -> bool:
-    """Initialize jax.distributed when running multi-host; no-op otherwise.
+    """Initialize jax.distributed when running multi-process; no-op otherwise.
 
-    Args default from the standard env vars (JAX auto-detects on Cloud
-    TPU); returns True if distributed mode is active.
+    The coordinator address, process count and process id come from
+    the arguments, else from ``COORDINATOR_ADDRESS``,
+    ``JAX_NUM_PROCESSES`` and ``JAX_PROCESS_ID``; nothing is
+    auto-detected.  Returns True if distributed mode is active.
     """
     global _initialized
     if _initialized:
         return True
-    # Cloud TPU pods set worker-topology env vars instead of the generic
-    # coordinator ones; jax.distributed.initialize() auto-detects them with
-    # no args.  TPU_WORKER_HOSTNAMES with >1 entry or a megascale
-    # coordinator means this process is one host of a multi-host slice.
-    tpu_hosts = os.environ.get("TPU_WORKER_HOSTNAMES", "")
-    cloud_multi = (
-        len([h for h in tpu_hosts.split(",") if h.strip()]) > 1
-        or bool(os.environ.get("MEGASCALE_COORDINATOR_ADDRESS"))
-    )
+    env_n = int(os.environ.get("JAX_NUM_PROCESSES", "1"))
     multi = (
         coordinator_address is not None
         or num_processes is not None
         or process_id is not None
         or os.environ.get("COORDINATOR_ADDRESS")
-        or int(os.environ.get("JAX_NUM_PROCESSES", "1")) > 1
-        or cloud_multi
+        or env_n > 1
     )
     if not multi:
         return False
-    if cloud_multi and coordinator_address is None and num_processes is None:
-        jax.distributed.initialize()  # full auto-detection on Cloud TPU
-    else:
-        jax.distributed.initialize(
-            coordinator_address=coordinator_address,
-            num_processes=num_processes,
-            process_id=process_id,
-        )
+    if coordinator_address is None:
+        coordinator_address = os.environ.get("COORDINATOR_ADDRESS")
+    if num_processes is None and "JAX_NUM_PROCESSES" in os.environ:
+        num_processes = env_n
+    if process_id is None and "JAX_PROCESS_ID" in os.environ:
+        process_id = int(os.environ["JAX_PROCESS_ID"])
+    jax.distributed.initialize(
+        coordinator_address=coordinator_address,
+        num_processes=num_processes,
+        process_id=process_id,
+    )
     _initialized = True
     logger.info(
         "jax.distributed initialized: process %d/%d, %d devices",

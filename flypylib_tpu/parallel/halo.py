@@ -1,6 +1,6 @@
-"""Volume-sharded inference, NMS, and CC with ICI halo exchange.
+"""Volume-sharded inference, NMS, and CC with device-to-device halo exchange.
 
-This is the TPU-native analog of flypylib's inference-side parallelism
+This is the mesh analog of flypylib's inference-side parallelism
 (volume blocks split across GPU threads, SURVEY.md section 3.2) and the
 "spatial sequence-parallelism" called for by SURVEY.md sections 2.3/5 and
 eval configs 2/5 [B:8][B:11]:
@@ -8,7 +8,7 @@ eval configs 2/5 [B:8][B:11]:
 - the volume is sharded along z (1-D mesh), z and y (2-D mesh), or z, y
   and x (3-D mesh) over the named mesh axes;
 - each shard exchanges ``context``-deep boundary slabs with its neighbors
-  via ``lax.ppermute`` (compiled to ICI sends, not host round-trips); the
+  via ``lax.ppermute`` (device-to-device sends, not host round-trips); the
   y exchange ships the *z-extended* block and the x exchange ships the
   *z+y-extended* block, so diagonal/corner data arrives via the multi-hop
   z-then-y-then-x path — every shard sees exactly the monolithic
@@ -22,7 +22,7 @@ eval configs 2/5 [B:8][B:11]:
 - sharded NMS repeats the same halo trick with the NMS window and extracts
   per-shard top-k candidates with *global* coordinates, so the merge is a
   trivial host-side concatenation of tiny detection lists (the "NMS merge
-  over ICI" of [B:11] — the map itself never moves);
+  over the interconnect" of [B:11] — the map itself never moves);
 - sharded CC labels each block on device and merges fragments across the
   shard-grid seams with the shared union-find
   (flypylib_tpu.ops.components.merge_component_fragments).
@@ -62,8 +62,8 @@ def _axes_tuple(axis) -> tuple[str, ...]:
 # Multi-process (multi-host) staging.  Single-process keeps the plain
 # local transfers; with jax.distributed initialized, host-global numpy
 # must become GLOBAL jax.Arrays before entering a global-mesh jit
-# (VERDICT r04 missing #3: host-local inputs to a global-mesh jit are
-# correct single-process only), and non-fully-addressable outputs must be
+# (host-local inputs to a global-mesh jit are correct single-process
+# only), and non-fully-addressable outputs must be
 # allgathered instead of device_get.
 
 
@@ -181,10 +181,8 @@ def sharded_infer(
     2 real processes in tests/test_distributed.py).
 
     ``tile_out`` switches the per-shard forward to the batched
-    small-cube tile sweep (``tile_batch`` tiles per MXU dispatch) — the
-    fast conv regime: batched 64^3 tiles measured 1.5x+ over monolithic
-    big-spatial blocks (BENCH_NOTES.md round-2 sweep; the same regime
-    the single-chip streaming engine runs).  Tile starts stay aligned to
+    small-cube tile sweep (``tile_batch`` tiles per dispatch) — the
+    regime the single-device streaming engine runs.  Tile starts stay aligned to
     the model's ``size_multiple`` relative to the GLOBAL volume (shard
     extents are already aligned), so sharded == monolithic stays
     bitwise.  Mutually exclusive with ``tile_z``.
@@ -398,7 +396,7 @@ def sharded_nms(
     threshold: float = 0.5,
     max_per_shard: int = 1024,
 ) -> Tbars:
-    """NMS on a sharded probability map with ICI halo exchange (1-D, 2-D,
+    """NMS on a sharded probability map with halo exchange (1-D, 2-D,
     or 3-D spatial mesh; see :func:`sharded_infer` for the ``axis``
     convention).
 

@@ -1,13 +1,13 @@
 """Device-mesh helpers.
 
-Parity/TPU-native mapping (SURVEY.md section 2.3): flypylib's only
-parallelism was single-node multi-GPU data parallelism
-(multi_gpu.make_parallel + volume sharding across GPU threads).  The
-TPU-native equivalents here run over a ``jax.sharding.Mesh``:
+Parity mapping (SURVEY.md section 2.3): flypylib's only parallelism was
+single-node multi-GPU data parallelism (multi_gpu.make_parallel + volume
+sharding across GPU threads).  The equivalents here run over a
+``jax.sharding.Mesh``:
 
 - ``data`` axis — batch-sharded training (replaces make_parallel),
 - ``space`` axis — volume-sharded halo inference (replaces the per-GPU
-  volume-block threads), collectives riding ICI.
+  volume-block threads), collectives between devices.
 """
 
 from __future__ import annotations

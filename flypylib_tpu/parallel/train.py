@@ -1,12 +1,12 @@
 """Mesh data-parallel training.
 
-TPU-native replacement for flypylib multi_gpu.make_parallel (SURVEY.md
+Mesh replacement for flypylib multi_gpu.make_parallel (SURVEY.md
 section 2.2 row 6): instead of replicating a Keras model under
 ``tf.device('/gpu:i')`` and slicing batches with Lambda layers, the jit'd
 train step is pjit-partitioned over a ``Mesh``: params/opt-state
 replicated, the on-device-sampled patch batch sharded over the ``data``
 axis (``with_sharding_constraint``), and XLA inserts the gradient
-all-reduce (psum) over ICI automatically.
+all-reduce (psum) automatically.
 
 The step body is exactly the single-chip one (flypylib_tpu.train.trainer
 ``make_step_impl``) with sharding callbacks — single-chip and multi-chip

@@ -2,7 +2,7 @@
 
 Parity: flypylib fplobjdetect.gen_batches (SURVEY.md section 2.2 row 3):
 an infinite generator of augmented (image, label, mask-weight) patch
-batches for users who drive their own training loop.  The TPU-native path
+batches for users who drive their own training loop.  The on-device path
 (flypylib_tpu.train.trainer) does all of this on device inside the jit'd
 step — this shim exists for API compatibility, custom loops, and as an
 independent host-semantics check of the device sampler.

@@ -9,8 +9,7 @@ wire up jax's debug machinery in one call for CI debug jobs:
   ``jax_debug_infs``) — failing dispatch re-runs op-by-op and points at
   the producing primitive;
 - disable jit entirely for pdb-able eager execution;
-- recompile logging to catch silent shape-driven recompilation (the
-  classic TPU perf bug).
+- recompile logging to catch silent shape-driven recompilation.
 """
 
 from __future__ import annotations

@@ -120,7 +120,7 @@ class StatefulDVID(MockDVID):
 
 def test_post_annotations_partner_roundtrip():
     """Push detections WITH partner PSDs, read back an identical Tbars
-    (locs + conf + partners) — VERDICT r04 missing item 2."""
+    (locs + conf + partners)."""
     StatefulDVID.elements = []
     srv = HTTPServer(("127.0.0.1", 0), StatefulDVID)
     t = threading.Thread(target=srv.serve_forever, daemon=True)

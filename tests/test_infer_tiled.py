@@ -89,9 +89,7 @@ def test_host_stream_equals_device_path(small_model, rng):
 def test_default_tiling_regimes():
     """Model-aware defaults: covering tile for pooling topologies,
     batched 64-wide grid for conv stacks; metadata override wins;
-    large pooled volumes fall back to the largest tile under the cap
-    (BENCH_NOTES.md round 3: monolithic U-Net tiles measured 1.2x the
-    best grid at 192^3 and 256^3)."""
+    large pooled volumes fall back to the largest tile under the cap."""
     import dataclasses
 
     from flypylib_tpu.infer.tiled import default_tiling

@@ -582,8 +582,8 @@ def test_staged_shared_forward_overflow_grows(model, rng):
 def test_shared_boxes_coarsen_mixed(model, rng):
     """The shared-mode postprocess partition coarsens base cores into
     ~target-extent boxes (forward cost is core-independent there, so
-    fewer/larger postprocess windows are strictly cheaper —
-    experiments/unet_shared_core.jsonl).  Force MIXED box shapes (a
+    fewer/larger postprocess windows are strictly cheaper).  Force
+    MIXED box shapes (a
     remainder group per axis) and pin shared == roi == host."""
     from flypylib_tpu.infer.large import detect_staged, make_stream_plan
 
@@ -809,7 +809,7 @@ def test_staged_shared_multi_device_chunked_uint8(model, rng):
 def test_pooled_default_core_and_tile(rng):
     """Pooling topologies get covering-tile streaming defaults: the
     largest core whose ONE covering tile input stays under the
-    428 compile cap (BENCH_NOTES.md round 3), and detections stay
+    428 tile-input cap, and detections stay
     exactly the host reference's."""
     import jax
 
@@ -1065,11 +1065,10 @@ def test_streaming_multi_device_pooled(rng):
 
 def test_stream_plan_explicit_tile_flows_to_shared_pipe(model, rng):
     """make_stream_plan(tile_out=, tile_batch=) governs the SHARED
-    whole-volume forward too (round-7 fix: it silently applied only to
-    the per-ROI pipe), and detections stay identical to the policy
-    default even when the explicit tile does not divide the volume
-    (grid-extension masking is exact — also validated bit-identical at
-    1k^3 on TPU, experiments/shared_tile_sweep.jsonl)."""
+    whole-volume forward too (not only the per-ROI pipe), and
+    detections stay identical to the policy default even when the
+    explicit tile does not divide the volume (grid-extension masking is
+    exact)."""
     from flypylib_tpu.infer.large import (
         detect_staged,
         make_stream_plan,

@@ -222,7 +222,7 @@ def test_keras_import_unmatched_layer_errors(tmp_path):
 
 
 def test_keras_order_import_rejects_unet(tmp_path):
-    """Anonymous (non-Flax-named) files cannot target U-Nets."""
+    """Anonymous (not layer-named) files cannot target U-Nets."""
     import h5py
     import jax
     import numpy as np
@@ -251,9 +251,12 @@ def test_enable_compilation_cache(tmp_path):
     persistent cache is initialized (the suite's conftest compiles
     against it), a later cache-dir update is ignored by jax — the
     helper is for process start, as its docstring says."""
+    import os
     import subprocess
     import sys
 
+    env = {k: v for k, v in os.environ.items()
+           if k != "JAX_COMPILATION_CACHE_DIR"}
     code = (
         "import sys\n"
         "import jax\n"
@@ -270,7 +273,7 @@ def test_enable_compilation_cache(tmp_path):
     )
     out = subprocess.run(
         [sys.executable, "-c", code, str(tmp_path / "xla")],
-        capture_output=True, text=True, timeout=300,
+        capture_output=True, text=True, timeout=300, env=env,
     )
     assert out.returncode == 0, out.stderr[-2000:]
     assert int(out.stdout.strip().splitlines()[-1]) > 0, (

@@ -1,8 +1,8 @@
 """Packed (space-to-depth) inference engine == plain ConvStack.
 
-Pins the round-2 perf path (ops/packed_conv.py): the packed rewrite is an
+Pins the packed engine (ops/packed_conv.py): the packed rewrite is an
 exact re-association of the same multiply-adds, so outputs must match the
-Flax ConvStack to accumulation tolerance, the packing round-trips must be
+plain ConvStack to accumulation tolerance, the packing round-trips must be
 exact, and the packed spec must stay bitwise self-consistent tiled vs
 monolithic (the engine invariant that makes it a drop-in ModelSpec).
 """
@@ -179,7 +179,7 @@ def test_packed_spec_rejects_unet():
 
 
 def test_packed_train_delegates(rng):
-    """train=True goes through the inner Flax module unchanged."""
+    """train=True goes through the inner module unchanged."""
     spec = baseline_model(
         features=(4,), dilations=(1,), head_features=4, dtype=jnp.float32
     )

@@ -66,43 +66,6 @@ def test_packed_unet_tiled_equals_monolithic(small_unet, rng):
     np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
 
 
-def test_pallas_tail_impl_matches_xla_tail(small_unet, rng):
-    """tail_impl="pallas" (fused level-0 epilogue kernel, interpret mode
-    on CPU) == the XLA tail up to f32 tap-accumulation order."""
-    spec, pspec, variables = small_unet
-    pspec_pl = packed_unet_spec(spec, tail_impl="pallas")
-    s = pspec.min_size
-    x = jnp.asarray(rng.random((1, s, s, s, 1)), jnp.float32)
-    ref = np.asarray(pspec.module.apply(variables, x, train=False))
-    got = np.asarray(pspec_pl.module.apply(variables, x, train=False))
-    assert got.shape == ref.shape
-    np.testing.assert_allclose(got, ref, rtol=1e-4, atol=1e-5)
-    # batch > 1 falls back to the XLA path (bit-identical)
-    xb = jnp.concatenate([x, x + 0.25], axis=0)
-    refb = np.asarray(pspec.module.apply(variables, xb, train=False))
-    gotb = np.asarray(pspec_pl.module.apply(variables, xb, train=False))
-    np.testing.assert_array_equal(gotb, refb)
-
-
-def test_pallas_fold_tail_impl_matches_xla_tail(small_unet, rng):
-    """tail_impl="pallas_fold" (single-stage fused fold conv —
-    standalone-kernel winner, in-chain A/B pending; BENCH_NOTES round
-    6b) == the XLA tail up to f32 tap-accumulation order, with the
-    batch>1 XLA fallback."""
-    spec, pspec, variables = small_unet
-    pspec_pf = packed_unet_spec(spec, tail_impl="pallas_fold")
-    s = pspec.min_size
-    x = jnp.asarray(rng.random((1, s, s, s, 1)), jnp.float32)
-    ref = np.asarray(pspec.module.apply(variables, x, train=False))
-    got = np.asarray(pspec_pf.module.apply(variables, x, train=False))
-    assert got.shape == ref.shape
-    np.testing.assert_allclose(got, ref, rtol=1e-4, atol=1e-5)
-    xb = jnp.concatenate([x, x + 0.25], axis=0)
-    refb = np.asarray(pspec.module.apply(variables, xb, train=False))
-    gotb = np.asarray(pspec_pf.module.apply(variables, xb, train=False))
-    np.testing.assert_array_equal(gotb, refb)
-
-
 def test_packed_unet_non_unet_returns_none():
     from flypylib_tpu.models.zoo import baseline_model
 
@@ -200,9 +163,9 @@ def test_unet_packed_engine_trains():
 
 
 def test_fold_form_split_matches_concat(small_unet, rng):
-    """fold_form="split" (the default since round 5)/"split0" (pre-
-    concat two-conv decoder, VERDICT r04 item 1 family) matches the
-    concat fold to f32-accumulation tolerance at every level."""
+    """fold_form="split" (the default)/"split0" (pre-concat two-conv
+    decoder) matches the concat fold to f32-accumulation tolerance at
+    every level."""
     from flypylib_tpu.ops.packed_unet import PackedUNet
 
     spec, pspec, variables = small_unet
@@ -222,26 +185,3 @@ def test_fold_form_split_matches_concat(small_unet, rng):
     with _pytest.raises(ValueError, match="fold_form"):
         PackedUNet(spec.module, fold_form="bogus")
 
-
-def test_pallas2_tail_impls_match_xla_tail(small_unet, rng):
-    """tail_impl="pallas_fold2"/"pallas2" (PRE-concat two-ref kernels,
-    interpret mode on CPU) == the XLA tail up to f32 tap-accumulation
-    order; batch>1 falls back to the XLA spelling bit-identically AND
-    warns about the mixed-tail hazard (code review r5: the warning was
-    unreachable under the split default)."""
-    spec, pspec, variables = small_unet
-    s = pspec.min_size
-    x = jnp.asarray(rng.random((1, s, s, s, 1)), jnp.float32)
-    ref = np.asarray(pspec.module.apply(variables, x, train=False))
-    xb = jnp.concatenate([x, x + 0.25], axis=0)
-    refb = np.asarray(pspec.module.apply(variables, xb, train=False))
-    for ti in ("pallas_fold2", "pallas2"):
-        pspec2 = packed_unet_spec(spec, tail_impl=ti)
-        got = np.asarray(pspec2.module.apply(variables, x, train=False))
-        assert got.shape == ref.shape
-        np.testing.assert_allclose(got, ref, rtol=1e-4, atol=1e-5)
-        with pytest.warns(UserWarning, match="falls back"):
-            gotb = np.asarray(
-                pspec2.module.apply(variables, xb, train=False)
-            )
-        np.testing.assert_array_equal(gotb, refb)

@@ -551,9 +551,9 @@ def test_sharded_infer_tile_out_validation(small_model):
 
 
 def test_sharded_infer_uint8_wire(small_model, rng, monkeypatch):
-    """uint8 volumes stay uint8 through host staging and the ICI halo
+    """uint8 volumes stay uint8 through host staging and the halo
     exchange (4x less wire/RAM), cast in-graph — bitwise equal to the
-    monolithic uint8 path (VERDICT r04 weak #5)."""
+    monolithic uint8 path."""
     import flypylib_tpu.parallel.halo as halo_mod
 
     spec, variables = small_model

@@ -144,7 +144,7 @@ def test_fit_val_every(tmp_path):
 
 def test_validation_engine_cached(monkeypatch):
     """Validation reuses ONE TiledInference across epochs (a fresh engine
-    per epoch re-jits the tile forward — minutes on a remote TPU)."""
+    per epoch re-jits the tile forward)."""
     import flypylib_tpu.infer.tiled as tiled_mod
 
     calls = []
@@ -237,16 +237,17 @@ def test_packed_engine_rejects_unsupported_module():
     """engine="packed" accepts ConvStack and UNetValid (the U-Net path
     is trained end-to-end in tests/test_packed_unet.py) but still
     refuses arbitrary modules with a clear error."""
-    import flax.linen as nn
+    from dataclasses import dataclass
+
     import jax.numpy as jnp
 
+    from flypylib_tpu.models.layers import Module, conv
     from flypylib_tpu.models.zoo import ModelSpec
 
-    class Custom(nn.Module):
-        @nn.compact
-        def __call__(self, x, train=False):
-            return nn.Conv(1, (3, 3, 3), padding="VALID",
-                           dtype=jnp.float32)(x)
+    @dataclass(frozen=True)
+    class Custom(Module):
+        def forward(self, s, x, train=False):
+            return conv(s, x, 1, (3, 3, 3), dtype=jnp.float32)
 
     spec = ModelSpec(name="custom", module=Custom(), context=1)
     cfg = TrainConfig(engine="packed")
@@ -283,8 +284,8 @@ def test_packed_engine_mesh_dp_matches_single_chip():
 
 
 def test_auto_engine_resolution():
-    """engine="auto" (the default) resolves to the measured-faster
-    engine per batch size (BENCH_NOTES round 4c crossover) and falls
+    """engine="auto" (the default) resolves by batch size (the
+    _PACKED_BATCH_CROSSOVER default) and falls
     back to plain when the model has no differentiable packed forward."""
     from flypylib_tpu.models.zoo import unet
     from flypylib_tpu.train.trainer import resolve_engine
@@ -316,7 +317,7 @@ def test_auto_engine_resolution():
 
 def test_validation_uses_infer_engine_tiling():
     """_validate routes through the network's infer_spec with the
-    default_tiling policy (VERDICT r04 weak #2): U-Net validation gets
+    default_tiling policy: U-Net validation gets
     the cover-regime tile, not the constructor default (64, 1)."""
     import numpy as np
 
